@@ -1,10 +1,10 @@
-"""mvskit_tpu — a TPU-native PatchMatch multi-view stereo engine.
+"""mvskit_tpu — a JAX PatchMatch multi-view stereo engine.
 
-Brand-new JAX/XLA/Pallas implementation of the PM-MVS pipeline
+Brand-new JAX/XLA implementation of the PM-MVS pipeline
 (capability reference: imkaywu/MVSKit): camera/projection model, image
 pyramids, NCC photo-consistency, scene-space PatchMatch propagation,
 batched refinement, geometric filtering, and PLY/patch I/O — designed
-for SPMD execution over TPU device meshes.
+for SPMD execution over accelerator device meshes.
 """
 
 from .config import MVSConfig

@@ -17,7 +17,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mvskit_tpu",
-        description="TPU-native PatchMatch multi-view stereo",
+        description="PatchMatch multi-view stereo",
     )
     p.add_argument("prefix", help="dataset root (contains option, image/, txt/, ply/)")
     p.add_argument("--option", default="option", help="option file name")
@@ -75,10 +75,13 @@ def parse_mesh(spec: str):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    if args.platform:
-        import jax
+    import jax
 
+    if args.platform:
         jax.config.update("jax_platforms", args.platform)
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from .config import MVSConfig
     from .pipeline.driver import PMMVS
@@ -117,7 +120,10 @@ def main(argv=None) -> int:
         engine.seed(resume_iter=args.resume_iter)
         engine.run(write_snapshots=not args.no_snapshots)
 
-    engine.write_patches(out, export_ply=True, export_patch=args.export_patch)
+    with engine.stage("final write"):
+        engine.write_patches(
+            out, export_ply=True, export_patch=args.export_patch
+        )
     print(f"wrote {out}.ply", file=sys.stderr)
     return 0
 

@@ -2,7 +2,7 @@
 
 The reference maintains mutable per-image cell vectors of patch
 pointers (reference pmmvps/patch_manager.{hpp,cpp}: m_pgrids/m_vpgrids/
-m_dpgrids, incrementally mutated by addPatch/removePatch). On TPU the
+m_dpgrids, incrementally mutated by addPatch/removePatch). Here the
 index is instead *rebuilt* as a deterministic dense pass over the patch
 table:
 
@@ -64,10 +64,9 @@ def patch_cells(
     invalid. Returns (cx[N, M], cy[N, M], valid[N, M])."""
     gw, gh = grid_dims(scene, level, csize)
     idx = jnp.maximum(lists, 0)
-    # dense-matmul projection + one-hot view select: the naive
-    # cam.project gather of P[idx] f32[N, M, 3, 4] pads 42.7x under
-    # TPU (8, 128) tiling — 16 GB of HLO temp at a 2^19-row full-table
-    # build (round-5 scale-check OOM; camera.project_xy_lists)
+    # dense-matmul projection + one-hot view select instead of a
+    # per-pair gather of P[idx] f32[N, M, 3, 4] (camera.project_xy_lists;
+    # whether the direct gather is cheaper on the GPU is ROADMAP C4)
     px, py, pvalid = cam.project_xy_lists(scene.cams, idx, coord, level)
     ix = jnp.floor(px + 0.5).astype(jnp.int32) // csize
     iy = jnp.floor(py + 0.5).astype(jnp.int32) // csize
@@ -208,7 +207,8 @@ def build_depth_maps(
     y0 = jnp.floor(fy).astype(jnp.int32)
     y1 = jnp.ceil(fy).astype(jnp.int32)
     depth = jnp.einsum(
-        "nc,pc->pn", scene.cams.oaxis, table.coord[:N]
+        "nc,pc->pn", scene.cams.oaxis, table.coord[:N],
+        precision=jax.lax.Precision.HIGHEST,
     )  # [N, n]
 
     base_valid = pvalid & table.alive[:N, None]
@@ -396,9 +396,8 @@ def set_vimages(
     row_limit: Optional[int] = None,
 ):
     """Table-wide setVImagesVGrids, chunked over rows (the inner
-    per-view projection gathers [rows, n_views, 3, 4] matrices whose
-    (3, 4) minor dims pad to (8, 128) on TPU — 32x; at full production
-    capacity one unchunked temp is ~8.6 GB). `row_limit` bounds the
+    per-view projection gathers [rows, n_views, 3, 4] matrices;
+    chunking bounds that temporary at full capacity). `row_limit` bounds the
     rows scanned (compacted-table invariant); rows beyond it are dead
     and their vimages reset to -1."""
     cap = table.capacity

@@ -1,6 +1,6 @@
-"""Vectorized pinhole camera model for the TPU PM-MVS engine.
+"""Vectorized pinhole camera model for the PM-MVS engine.
 
-TPU-first re-expression of the reference camera (reference:
+Array-first re-expression of the reference camera (reference:
 image/camera.{hpp,cpp}). Instead of one C++ object per view with a
 vector of per-level 3x4 matrices, all cameras live in a single struct of
 arrays (`CameraSet`), and the per-level projection collapses to a scale:
@@ -237,7 +237,9 @@ def project(cams: CameraSet, index, coord, level=0):
     the BEHIND sentinel and valid=False.
     """
     Pm = cams.P[index]  # [..., 3, 4]
-    ic = jnp.einsum("...ij,...j->...i", Pm, coord)
+    ic = jnp.einsum(
+        "...ij,...j->...i", Pm, coord, precision=jax.lax.Precision.HIGHEST
+    )
     z = ic[..., 2]
     valid = z > 0.0
     safe_z = jnp.where(valid, z, 1.0)
@@ -253,10 +255,9 @@ def project_xy_lists(cams: CameraSet, index, coord, level=0):
     list, WITHOUT the per-pair P gather of `project`.
 
     `project(cams, idx, coord[:, None], level)` materializes
-    P[idx] = f32[N, M, 3, 4]: the [3, 4] minor dims tile to (8, 128) on
-    TPU with a 42.7x padding expansion — 16 GB of HLO temp at the
-    2^19-row full-table grid build (the round-5 scale-check OOM).
-    Projection is linear, so instead ONE [N, 4] @ [4, 3V]
+    P[idx] = f32[N, M, 3, 4], a large temporary at full table capacity
+    (whether it is cheaper on the GPU is ROADMAP C4). Projection is
+    linear, so instead ONE [N, 4] @ [4, 3V]
     f32-HIGHEST matmul projects every point into every view and a
     static one-hot sweep picks each list entry's view; every
     intermediate stays [N, M]-shaped (no trailing 3/4 axis to pad).
@@ -295,13 +296,19 @@ def unproject(cams: CameraSet, index, xy, pz, level=0):
     b = jnp.stack(
         [xy[..., 0] * s * pz, xy[..., 1] * s * pz, pz], axis=-1
     ) - cams.P[index][..., :, 3]
-    pt3 = jnp.einsum("...ij,...j->...i", cams.Minv[index], b)
+    pt3 = jnp.einsum(
+        "...ij,...j->...i", cams.Minv[index], b,
+        precision=jax.lax.Precision.HIGHEST,
+    )
     return jnp.concatenate([pt3, jnp.ones_like(pt3[..., :1])], axis=-1)
 
 
 def compute_depth(cams: CameraSet, index, coord):
     """Optical-axis depth (reference camera.cpp:339-346)."""
-    return jnp.einsum("...i,...i->...", cams.oaxis[index], coord)
+    return jnp.einsum(
+        "...i,...i->...", cams.oaxis[index], coord,
+        precision=jax.lax.Precision.HIGHEST,
+    )
 
 
 def get_unit(cams: CameraSet, index, coord, level):

@@ -1,9 +1,10 @@
-"""Host-side image/mask decoding for the TPU PM-MVS engine.
+"""Host-side image/mask decoding for the PM-MVS engine.
 
 Functional equivalent of the reference's image I/O (reference:
 image/image.cpp:827-1022): JPEG/PNG/PPM decode to RGB uint8, binary
-PGM (P5) / PBM (P4) mask decode, PGM write. JPEG decoding goes through
-PIL (the reference used CImg); PGM/PBM are parsed directly so the byte
+PGM (P5) / PBM (P4) mask decode, PGM write. JPEG/PNG/TIFF decoding goes
+through PIL (the reference used CImg), imported only when such a file is
+read, so PPM datasets need nothing beyond NumPy; PGM/PBM are parsed directly so the byte
 semantics match the reference exactly (PBM: bit set = black = masked
 out -> 0, clear = 255; reference image.cpp:929-941).
 """
@@ -27,8 +28,7 @@ def load_rgb(path: str) -> np.ndarray:
     if ext in (".ppm", ".pgm", ".pbm"):
         arr = _read_pnm(path)
     else:
-        from PIL import Image as PILImage
-
+        PILImage = _pil(path)
         with PILImage.open(path) as im:
             arr = np.asarray(im.convert("RGB"))
     if arr.ndim == 2:
@@ -38,10 +38,21 @@ def load_rgb(path: str) -> np.ndarray:
     return np.ascontiguousarray(arr, dtype=np.uint8)
 
 
-def save_rgb(path: str, img: np.ndarray) -> None:
-    from PIL import Image as PILImage
+def _pil(path: str):
+    """PIL's Image module, or an ImportError that names the formats
+    needing it."""
+    try:
+        from PIL import Image as PILImage
+    except ImportError as e:
+        raise ImportError(
+            f"reading or writing {path!r} needs Pillow (PIL): JPEG, PNG and "
+            "TIFF go through it; PPM/PGM/PBM images need no extra package"
+        ) from e
+    return PILImage
 
-    PILImage.fromarray(np.asarray(img, dtype=np.uint8)).save(path)
+
+def save_rgb(path: str, img: np.ndarray) -> None:
+    _pil(path).fromarray(np.asarray(img, dtype=np.uint8)).save(path)
 
 
 def _read_pnm_header(data: bytes) -> Tuple[bytes, Tuple[int, ...], int]:

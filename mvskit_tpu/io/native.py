@@ -1,9 +1,9 @@
 """ctypes bindings for the native PLY library (native/plyio.cpp).
 
 The reference keeps point-cloud I/O native (io/io_file.c + RPly,
-SURVEY.md C14/C15); this is the TPU engine's equivalent. The shared
-library is auto-built with g++ on first use and cached next to the
-source; everything degrades gracefully to the pure-Python path
+SURVEY.md C14/C15); this is the engine's equivalent. The shared
+library is not committed: it is built with g++ from the committed
+source on first use and cached next to it (git-ignored); everything degrades gracefully to the pure-Python path
 (io/ply.py) when a compiler is unavailable or MVSKIT_NO_NATIVE is set.
 """
 
@@ -39,12 +39,16 @@ def _load() -> Optional[ctypes.CDLL]:
                 os.path.exists(_SRC)
                 and os.path.getmtime(_SRC) > os.path.getmtime(_LIB)
             ):
+                # build beside the target and rename into place, so a
+                # concurrent process never loads a half-written library
+                tmp = f"{_LIB}.{os.getpid()}.tmp"
                 subprocess.run(
-                    ["g++", "-O2", "-shared", "-fPIC", "-o", _LIB, _SRC],
+                    ["g++", "-O2", "-shared", "-fPIC", "-o", tmp, _SRC],
                     check=True,
                     capture_output=True,
                     timeout=120,
                 )
+                os.replace(tmp, _LIB)
             lib = ctypes.CDLL(_LIB)
             lib.ply_count.restype = ctypes.c_long
             lib.ply_count.argtypes = [

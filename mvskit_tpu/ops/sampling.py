@@ -22,12 +22,9 @@ def _flatten_planes(scene: Scene):
 def sample_color_ch(scene: Scene, image_idx, x, y, level, illum=0):
     """Bilinear color fetch, channel-LEADING output [3, ...].
 
-    TPU layout note: the minor-most two dims of any materialized array
-    tile to (8, 128) on TPU, so window tensors must never end in a
-    small channel/tap axis (a trailing (49, 3) pads 36x). This variant
-    gathers each RGB channel separately from the flat interleaved plane
-    buffer and accumulates the four bilinear taps immediately, so the
-    hot path only ever materializes [..., S]-shaped arrays.
+    Gathers each RGB channel separately from the flat interleaved
+    plane buffer and accumulates the four bilinear taps immediately, so
+    only [..., S]-shaped arrays are materialized.
     """
     flat = scene.planes.reshape(-1)  # interleaved RGB
     ni = scene.planes.shape[1]
@@ -71,11 +68,10 @@ def sample_color_ch_packed(scene: Scene, image_idx, x, y, level, illum=0):
     """Bilinear fetch from the PACKED int32 planes, channel-leading
     [3, ...] output.
 
-    Random gathers on TPU run at a fixed per-index rate (~100-130 M
-    fetches/s measured on v5e regardless of index shape), so sampling
-    cost is set by the NUMBER of fetches: packing RGB u8 into one int32
-    turns 12 fetches per bilinear sample into 4 — pyramid levels are
-    u8-quantized, so the packing is lossless."""
+    Packing RGB u8 into one int32 turns 12 fetches per bilinear sample
+    into 4 — pyramid levels are u8-quantized, so the packing is
+    lossless. This is the engine's NCC window sampler (ops/ncc
+    sample_windows_raw)."""
     flat = scene.planes_packed.reshape(-1)
     ni = scene.planes_packed.shape[1]
     t = scene.planes_packed.shape[2]

@@ -2,17 +2,17 @@
 
 The reference is a single process on one workstation (SURVEY.md §2:
 no threads, no MPI/NCCL); this module is the greenfield N>=2-host tier
-of the engine's parallelism stack. Within a host/slice the collectives
-ride ICI (parallel/shard.py, parallel/tiles.py); across hosts JAX's
-single-controller-per-process runtime carries the same `psum` /
-`ppermute` programs over DCN. The program is IDENTICAL — shard_map
+of the engine's parallelism stack. Within a host the collectives ride
+the device interconnect (parallel/shard.py, parallel/tiles.py); across
+hosts JAX's single-controller-per-process runtime carries the same
+`psum` / `ppermute` programs over the network. The program is IDENTICAL — shard_map
 over a global mesh — only array construction changes, because each
 process can only materialize the shards its own devices hold.
 
 Entry points:
   * init_distributed()     — jax.distributed.initialize wrapper (DCN
                              rendezvous; gloo collectives on CPU so the
-                             path is testable without a pod).
+                             path is testable on one machine).
   * global_view_mesh()     — a Mesh over ALL processes' devices.
   * enable_view_sharding_global(scene, mesh)
                            — multi-process analog of
@@ -50,9 +50,8 @@ def init_distributed(
 ) -> None:
     """Join the multi-process runtime.
 
-    On TPU pods all arguments are discovered from the environment and
-    this is just jax.distributed.initialize(). Off-pod (tests, CPU
-    fleets) pass coordinator/num_processes/process_id explicitly;
+    Pass coordinator/num_processes/process_id explicitly: nothing in a
+    single machine's environment describes a cluster;
     `local_device_count` forces N virtual CPU devices per process and
     selects gloo collectives so cross-process psum works on CPU.
     """
@@ -113,14 +112,11 @@ def enable_view_sharding_global(
         )
     sh_v = P(axis)
     put_v = lambda x: _make_global(x, mesh, sh_v)
-    put_tuple = lambda t: None if t is None else tuple(put_v(x) for x in t)
     return dataclasses.replace(
         scene,
         planes=put_v(scene.planes),
         planes_packed=put_v(scene.planes_packed),
         planes_luma_quad=put_v(scene.planes_luma_quad),
-        planes_luma_levels=put_tuple(scene.planes_luma_levels),
-        planes_rgb_levels=put_tuple(scene.planes_rgb_levels),
         masks=_make_global(scene.masks, mesh, P()),
         cams=_replicate_tree(scene.cams, mesh),
         lvl_offsets=_make_global(scene.lvl_offsets, mesh, P()),

@@ -2,7 +2,7 @@
 
 SURVEY.md §7.7: the reference's serpentine sweep walks the whole cell
 grid of every image sequentially (reference pmmvps/propagate.cpp:78-121).
-The TPU re-design already replaced the sweep with checkerboard rounds
+The engine's re-design already replaced the sweep with checkerboard rounds
 (pipeline/propagate.py); this module shards those rounds' *spatial
 index* — the per-image cell grids of the PatchManager (reference
 pmmvps/patch_manager.hpp:90-104) — across a device mesh by cell ROW,

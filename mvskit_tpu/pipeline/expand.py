@@ -10,7 +10,7 @@ angular sectors on its own tangent plane at radius computeRadius(),
 skipping sectors already filled by neighbors, with per-cell effort
 counters throttling repeated expansion into the same cells.
 
-The TPU redesign processes a donor budget per round (score2-descending,
+The batched redesign processes a donor budget per round (score2-descending,
 matching the reference's priority queue order) and carries the effort
 counters as a dense [n, gh, gw] array across rounds.
 """

@@ -151,7 +151,8 @@ def gain_batch(
             # only co-cell patches BEHIND this patch press on it
             # (filter.cpp:136-141)
             pdepth = jnp.einsum(
-                "bmc,bc->bm", scene.cams.oaxis[img], coord
+                "bmc,bc->bm", scene.cams.oaxis[img], coord,
+                precision=lax.Precision.HIGHEST,
             )[..., None]
             # channel-leading gather (no length-4 minor axis; see
             # _is_neighbor_vs_table)
@@ -180,9 +181,8 @@ def _is_neighbor_vs_table(
 
     Gathers are CHANNEL-LEADING: table coords/normals are fetched one
     component at a time from [4, N] transposes so no gathered temp ends
-    in a length-4 minor axis. The naive `table.coord[b_idx]` form pads
-    32x under (8,128) tiling — 12.5 GB of HLO temp per gather at the
-    gauntlet's production shape [4096, 6400] (the round-3 E2E OOM)."""
+    in a length-4 minor axis (the layout choice is re-measured under
+    ROADMAP C4)."""
     expand = (slice(None),) + (None,) * (b_idx.ndim - 1)
     ds = dscale[expand]
     coord_t = table.coord.T  # [4, N]
@@ -233,9 +233,8 @@ def compute_gains(
     """Filter::computeGain for every table row (filter.cpp:108-146).
 
     Chunked over rows: gain_batch gathers [B, n_views, S, 4] pressed
-    coordinates whose trailing 4 pads to 128 lanes on TPU — unchunked
-    at production capacity (2^18 rows x 16 views x 16 slots) that
-    single temp is 32 GB. `row_limit` bounds the rows scanned
+    coordinates, which unchunked at production capacity (2^18 rows x
+    16 views x 16 slots) is a multi-GB temporary. `row_limit` bounds the rows scanned
     (compacted-table invariant, core/grid._fill_slots); rows beyond it
     return gain 0."""
     cap = table.capacity
@@ -552,9 +551,8 @@ def quad_residuals_batch(
 
     nok = nbrs >= 0
     nidx = jnp.maximum(nbrs, 0)
-    # channel-leading gather of the neighbor coordinates: the naive
-    # table.coord[nidx] form ends in a length-4 minor axis that pads
-    # 32x under (8, 128) tiling (same hazard as _is_neighbor_vs_table)
+    # channel-leading gather of the neighbor coordinates (same layout
+    # as _is_neighbor_vs_table)
     coord_t = table.coord.T  # [4, N]
     d2 = 0.0
     fxs = 0.0
@@ -577,9 +575,10 @@ def quad_residuals_batch(
     A = jnp.stack([fxs * fxs, fys * fys, fxs * fys, fxs, fys], axis=-1)
     Aw = jnp.where(nok[..., None], A, 0.0)
     bw = jnp.where(nok, fzs, 0.0)
-    AtA = jnp.einsum("bki,bkj->bij", Aw, Aw)
+    hi = lax.Precision.HIGHEST
+    AtA = jnp.einsum("bki,bkj->bij", Aw, Aw, precision=hi)
     AtA = AtA + 1e-8 * jnp.eye(5)[None]
-    Atb = jnp.einsum("bki,bk->bi", Aw, bw)
+    Atb = jnp.einsum("bki,bk->bi", Aw, bw, precision=hi)
     x = jnp.linalg.solve(AtA, Atb[..., None])[..., 0]
 
     # unit = mean getUnit over the first min(tau, |images|) views
@@ -591,7 +590,7 @@ def quad_residuals_batch(
     unit = jnp.sum(jnp.where(lists >= 0, units, 0.0), axis=1) / ucnt
     unit = jnp.where(unit == 0.0, 1.0, unit)
 
-    pred = jnp.einsum("bki,bi->bk", A, x)
+    pred = jnp.einsum("bki,bi->bk", A, x, precision=hi)
     res = jnp.abs(pred - fzs) / unit[:, None]
     total = jnp.sum(jnp.where(nok, res, 0.0), axis=1)
     denom = jnp.sum(nok, axis=1) - 5
@@ -614,8 +613,8 @@ def filter_neighbor_rows(
     cand_cap: int = 1024,
 ) -> Tuple[PatchTable, jnp.ndarray]:
     """filterNeighbor over rows [row_offset, row_offset+row_count) —
-    the driver dispatches the table in segments because one program
-    covering all rows runs long enough to crash the remote worker."""
+    the driver dispatches the table in segments, which bounds each
+    program's temporaries (ROADMAP A5 revisits the split)."""
     N = table.capacity
     n_chunks = (row_count + chunk - 1) // chunk
     rows_all = (
@@ -710,9 +709,8 @@ def filter_small_groups(
     me = jnp.arange(N, dtype=jnp.int32)
     ref_unit_all = _ref_unit(scene, table, me, level)  # [N]
 
-    # edge construction gathers [rows, Kc, 4] neighbor coordinates
-    # whose trailing 4 pads to 128 lanes on TPU — unchunked at 2^18
-    # rows x 288 candidates that is a 38 GB temp. Chunk over rows.
+    # edge construction gathers [rows, Kc, 4] neighbor coordinates;
+    # chunk over rows to bound that temporary at full capacity.
     Kc = cand.shape[1]
     CH = min(2048, N)
     nch = (N + CH - 1) // CH

@@ -1,6 +1,6 @@
 """Checkerboard PatchMatch propagation.
 
-TPU-first re-design of the reference's serpentine cell sweep (reference
+Data-parallel re-design of the reference's serpentine cell sweep (reference
 pmmvps/propagate.cpp:72-237, `propagatePmImage`/`propagatePatch`/
 `generatePatch`): instead of walking cells sequentially per image, each
 round gathers the top donors of every cell (reference view patches,
@@ -62,7 +62,6 @@ class PropagateParams(NamedTuple):
     luma_refine: bool = False
     neighbor_capacity: int = 48
     neighbor_cand_cap: int = 1024
-    group_dma: bool = True
     donor_policy: str = "cell_first"
     rgb_tail: int = 0
     # multi-illumination scoring (the live wiring of the reference's
@@ -247,7 +246,7 @@ def run_gauntlet(
         init_depth_radius=p.refine_depth_radius,
         init_angle_radius=p.refine_angle_radius,
         grad_steps=p.grad_steps, grad_lr=p.grad_lr,
-        luma=p.luma_refine, group_dma=p.group_dma,
+        luma=p.luma_refine,
         n_illums=p.n_illums, rgb_tail=p.rgb_tail,
     )
 

@@ -3,7 +3,8 @@
 The reference refines one patch at a time with derivative-free BOBYQA
 over 3 parameters (depth-along-ray, two normal angles; reference
 pmmvps/optim.cpp:470-599, <=500 cost evaluations through a non-reentrant
-static-singleton trampoline). That shape is hostile to TPUs, so the
+static-singleton trampoline). That shape is hostile to a wide data-
+parallel accelerator, so the
 refinement is re-expressed as *batched random hypothesis search* with a
 geometrically shrinking trust region — the standard GPU PatchMatch-MVS
 scheme — over the *same* encoding (optim.cpp:549-599) and the *same*
@@ -75,7 +76,7 @@ class RefineResult(NamedTuple):
 
 def _eval_cost(
     scene, views, coord, normal, minimum, level, wsize, angle_threshold1,
-    luma=False, group=1, n_illums=1,
+    luma=False, n_illums=1,
 ):
     """cost_func (reference optim.cpp:401-468); with n_illums > 1 the
     robust-INCC cost averages over the illumination axis (the live
@@ -85,7 +86,7 @@ def _eval_cost(
     for il in range(max(n_illums, 1)):
         tex, valid = nccops.texs_for_views(
             scene, views, coord, normal, level, wsize, angle_threshold1,
-            illum=il, luma=luma, group=group,
+            illum=il, luma=luma,
         )
         costs.append(nccops.incc_cost(tex, valid, minimum))
     return sum(costs) / len(costs)
@@ -113,7 +114,6 @@ def refine_batch(
     grad_steps: int = 0,
     grad_lr: float = 0.5,
     luma: bool = False,
-    group_dma: bool = True,
     n_illums: int = 1,
     rgb_tail: int = 0,
 ) -> RefineResult:
@@ -125,18 +125,13 @@ def refine_batch(
     starting pose scores as round 0's pinned candidate 0 instead of a
     separate ungrouped pass).
 
-    group_dma: on the Pallas path, the n_cands jittered candidates of
-    each round share one DMA tile per (patch, view) — n_cands x fewer
-    DMA descriptors on the kernel's limiting resource. Candidates whose
-    window escapes the shared tile (or resolves to a different pyramid
-    level than candidate 0) lose that view for that evaluation only.
+    Every candidate is scored with exactly the reference's
+    per-evaluation semantics (cost_func, optim.cpp:401-468).
 
     rgb_tail (only with luma=True): the LAST rgb_tail rounds search in
     RGB instead of luminance. The coarse rounds only need to locate the
     NCC basin, where the cheap luminance signal suffices; the final
-    rounds set the sub-pixel accuracy, where chroma contrast measurably
-    matters (on-chip A/B REFINE_AB_CHIP.json: full-luma err_med 0.024
-    vs full-RGB 0.011 on the random-texture plane)."""
+    rounds set the sub-pixel accuracy, where chroma contrast matters."""
     B = coord.shape[0]
     ref = jnp.maximum(images[:, 0], 0)
     center = coord
@@ -159,20 +154,17 @@ def refine_batch(
     )
     p0 = p0.at[:, 1:].set(jnp.clip(p0[:, 1:], -ANGLE_BOUND, ANGLE_BOUND))
 
-    def cost_of(p, sc=scene):
+    def cost_of(p):
         c = decode_coord(center, ray, safe_dscale, p[:, 0])
-        n = decode_normal(sc, ref, p[:, 1] * ascale, p[:, 2] * ascale)
+        n = decode_normal(scene, ref, p[:, 1] * ascale, p[:, 2] * ascale)
         return _eval_cost(
-            sc, views, c, n, minimum, level, wsize, angle_threshold1,
+            scene, views, c, n, minimum, level, wsize, angle_threshold1,
             luma=luma, n_illums=n_illums,
         )
 
     # The starting pose p0 is NOT evaluated in a separate pass: round 0
     # pins candidate 0's jitter to zero, so p0 scores inside the first
-    # GROUPED batch (it is the group's member 0, so the shared DMA tile
-    # is built around it — exact sampling) and best_c starts at +inf.
-    # This removes the one ungrouped (slowest-form) evaluation the
-    # round-3 design paid per refinement; the total budget is
+    # candidate batch and best_c starts at +inf. The total budget is
     # rounds * n_cands evaluations (the analog of the reference's
     # maxeval, optim.cpp:487).
     best_p = p0
@@ -227,9 +219,6 @@ def refine_batch(
                 angle_threshold1,
                 luma=luma_mode,
                 n_illums=n_illums,
-                # candidates are repeat-contiguous per patch: group
-                # their window DMAs (pallas_ncc group mode)
-                group=n_cands if group_dma else 1,
             ).reshape(B, n_cands)
             kbest = jnp.argmin(costs, axis=1)
             cbest = jnp.take_along_axis(
@@ -280,14 +269,7 @@ def refine_batch(
     # the reference's derivative-free BOBYQA cannot use); safeguarded
     # accept-if-better steps so the polish can only improve the cost
     if grad_steps > 0:
-        # the Pallas sampler has no VJP; gradients flow through the
-        # differentiable gather path instead
-        import dataclasses as _dc
-
-        gscene = _dc.replace(
-            scene, planes_luma_levels=None, planes_rgb_levels=None
-        )
-        grad_fn = jax.grad(lambda p: jnp.sum(cost_of(p, gscene)))
+        grad_fn = jax.grad(lambda p: jnp.sum(cost_of(p)))
         for _ in range(grad_steps):
             g = grad_fn(best_p)
             gn = jnp.sqrt(jnp.maximum(jnp.sum(g * g, axis=-1, keepdims=True), 1e-12))

@@ -216,7 +216,9 @@ def check_angles(scene: Scene, coord, images, min_angle, max_angle):
     one view pair must subtend an angle in (min_angle, max_angle)."""
     idx = jnp.maximum(images, 0)
     rays = _unit_rays(scene, idx, coord[:, None, :])
-    dots = jnp.einsum("bic,bjc->bij", rays, rays)
+    dots = jnp.einsum(
+        "bic,bjc->bij", rays, rays, precision=lax.Precision.HIGHEST
+    )
     ang = jnp.arccos(jnp.clip(dots, -1.0, 1.0))
     present = images >= 0
     M = images.shape[1]

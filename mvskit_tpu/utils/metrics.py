@@ -15,9 +15,14 @@ import numpy as np
 
 def _nn_dist(src: np.ndarray, dst: np.ndarray, block: int = 2048) -> np.ndarray:
     """Nearest-neighbor distance from each src point to dst (brute
-    force, blocked). src [N,3], dst [M,3] -> [N]."""
+    force, blocked). src [N,3], dst [M,3] -> [N]. The expanded
+    |s|^2 - 2 s.d + |d|^2 form cancels catastrophically in float32 when
+    the distance is small against the coordinates, so it runs in
+    float64 whatever the inputs' type."""
     if dst.shape[0] == 0:
         return np.full(src.shape[0], np.inf)
+    src = np.asarray(src, np.float64)
+    dst = np.asarray(dst, np.float64)
     out = np.empty(src.shape[0])
     d2_dst = np.sum(dst * dst, axis=1)
     for i in range(0, src.shape[0], block):

@@ -3,7 +3,7 @@
 The reference's observability is wall-clock prints (with a
 CLOCKS_PER_SEC unit bug) and pass/fail counters (SURVEY.md §5,
 reference propagate.cpp:55-63, filter.cpp:90-96, pmmvps.cpp:112-113).
-This module provides the TPU-native equivalents: correct phase timers,
+This module provides the engine's equivalents: correct phase timers,
 structured counters, and jax.profiler trace capture.
 """
 
@@ -26,8 +26,8 @@ class PhaseTimer:
     @contextlib.contextmanager
     def phase(self, name: str, sync=None):
         """Time a phase. Pass sync=some_jax_output to block on device
-        completion before stopping the clock (remote backends may not
-        flush otherwise)."""
+        completion before stopping the clock (dispatch is
+        asynchronous)."""
         t0 = time.time()
         box = {}
         try:

@@ -1,8 +1,8 @@
-// Native PLY vertex reader/writer for mvskit_tpu.
+// Native PLY vertex reader/writer for the PM-MVS engine.
 //
 // The reference keeps its point-cloud I/O in native code (io/io_file.c
 // over the vendored RPly; SURVEY.md C14/C15). This is the equivalent
-// native component for the TPU engine, written from scratch: a small
+// native component for this engine, written from scratch: a small
 // C ABI shared library (built with g++, bound via ctypes) that parses
 // ascii / binary_little_endian PLY vertex elements — x/y/z plus
 // optional nx/ny/nz and rgb (red/diffuse_red/r naming) — an order of

@@ -64,6 +64,21 @@ def test_tile_mesh_driver_bit_equal(dataset, base_cloud):
     np.testing.assert_array_equal(got["images"], want["images"])
 
 
+def test_dp_mesh_driver_bit_equal(dataset, base_cloud):
+    """mesh_dp=4: propagation runs on a replicated copy of the table,
+    so it compiles to the one-device program, and hands the filters a
+    row-sharded table to partition. The final cloud is identical to the
+    single-device driver."""
+    eng = PMMVS(_cfg(dataset, mesh_dp=4), log=lambda *a: None)
+    eng.seed()
+    eng.propagate(0)
+    assert eng.table.coord.sharding.spec[0] == "dp"
+    eng.filter()
+    got, want = eng.collect(), base_cloud
+    for k in ("coord", "normal", "ncc", "images"):
+        np.testing.assert_array_equal(got[k], want[k])
+
+
 def test_combined_mesh_driver_runs(dataset, base_cloud):
     """(dp=2, view=2, tile=2): all three axes live in one driver run.
     View-psum contributions are disjoint (adding exact zeros), so the

@@ -4,7 +4,7 @@ The reference has no distributed anything (SURVEY.md §2); the engine's
 DCN tier is parallel/multihost.py. This test launches two actual OS
 processes, each owning 2 virtual CPU devices, joined through
 jax.distributed with gloo collectives — the same rendezvous + global
-mesh + shard_map program a TPU pod runs over DCN — and checks that
+mesh + shard_map program a multi-host cluster runs — and checks that
 view-sharded NCC across processes equals the unsharded value.
 """
 

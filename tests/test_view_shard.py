@@ -1,7 +1,6 @@
 """View-sharded sampling (scene.view_mesh) equals the unsharded path
 through every consumer: texs_for_views, compute_patch_ncc, refine_batch,
-a full propagation round, and the PMMVS driver — including composition
-with the Pallas sampler (interpret mode on CPU)."""
+a full propagation round, and the PMMVS driver."""
 
 import math
 
@@ -10,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from mvskit_tpu.geometry import camera as cam
 from mvskit_tpu.ops import ncc as nccops
 from mvskit_tpu.parallel import shard as sh
 from mvskit_tpu.pipeline import propagate as pr
@@ -67,33 +67,6 @@ def test_view_sharded_patch_ncc_matches(sp):
         vscene, views, coord, normal, LEVEL, WSIZE, TAU, A1
     ))
     np.testing.assert_allclose(got, want, atol=1e-5)
-
-
-def test_view_sharded_pallas_compose(sp):
-    """The sharded path must route through the Pallas sampler when the
-    per-level planes are present (interpret mode on CPU)."""
-    from mvskit_tpu.ops import pallas_ncc as pk
-
-    scene, coord, normal, views = sp
-    pscene = pk.enable_pallas(scene)
-    assert pscene.planes_rgb_levels is not None
-    mesh = sh.make_mesh(8, axis="view")
-    vscene = sh.enable_view_sharding(pscene, mesh)
-    assert all(
-        x.sharding.spec == jax.sharding.PartitionSpec("view")
-        for x in vscene.planes_rgb_levels
-    )
-
-    want_t, want_v = nccops.texs_for_views(
-        pscene, views[:, :TAU], coord, normal, LEVEL, WSIZE, A1
-    )
-    got_t, got_v = nccops.texs_for_views(
-        vscene, views[:, :TAU], coord, normal, LEVEL, WSIZE, A1
-    )
-    np.testing.assert_array_equal(np.asarray(got_v), np.asarray(want_v))
-    np.testing.assert_allclose(
-        np.asarray(got_t), np.asarray(want_t), atol=1e-5
-    )
 
 
 def test_view_sharded_refine_matches(sp):
@@ -170,3 +143,32 @@ def test_driver_accepts_view_mesh(sp):
     eng.table = make_seeded_table(eng.scene, coord, normal, capacity=1024)
     eng.propagate(0)
     assert int(np.asarray(eng.table.n_alive())) > 0
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_view_sharded_gather_sampler_checks_vma(sp, k):
+    """The view-sharded gather sampler runs shard_map with its
+    varying-axes check ON and returns exactly the unsharded raw windows:
+    each view's samples come from one device and the psum adds zeros."""
+    scene, coord, normal, views = sp
+    vscene = sh.enable_view_sharding(scene, sh.make_mesh(k, axis="view"))
+    views_t = views[:, :TAU].T
+    pxaxis, pyaxis = cam.get_paxes(
+        scene.cams, views_t[0], coord, normal, LEVEL
+    )
+    geom = nccops.window_geometry_views(
+        scene, views_t, coord, pxaxis, pyaxis, normal, LEVEL, WSIZE, A1
+    )
+    tl, dx2, dy2, new_level, _ = geom
+    args = (views_t, tl, dx2, dy2, new_level, WSIZE, 0, False)
+
+    def sharded(*a):
+        return nccops._sample_windows_view_sharded(vscene, *a)[0]
+
+    jaxpr = jax.make_jaxpr(sharded, static_argnums=(5, 6, 7))(*args)
+    smaps = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "shard_map"]
+    assert smaps and all(e.params["check_vma"] for e in smaps)
+    want, c0 = nccops.sample_windows_raw(scene, *args)
+    got, c1 = nccops._sample_windows_view_sharded(vscene, *args)
+    assert c0 == c1 == 3
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
